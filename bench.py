@@ -1,34 +1,23 @@
-"""Benchmark harness: rays/sec/chip forward+backward at 1 spp (the
-BASELINE.json north-star metric), on TWO workloads:
+"""Benchmark harness: rays/sec forward+backward at 1 spp (the
+BASELINE.json north-star metric) on one GPU.
 
-  * bunny1  — the real Stanford bunny (models/bunny.obj, 69,451 tris),
-    the time-series scene benched every round;
-  * bunny20 — twenty instanced bunnies (1,389,021 tris, the reference's
-    876,137-node-BVH scene, writeup/A2/Readme.tex:82,97), served by
-    PallasBVHHBM (ops/pallas_bvh.py): one whole-scene wide tree with
-    inner nodes in VMEM and leaf tables DMA'd from HBM per leaf visit,
-    because one tree's leaf table exceeds VMEM;
-  * sponza_proxy — the ~160k-tri procedural colonnaded atrium rendered
-    from INSIDE (scenes/registry): the interior-occlusion workload
-    class of the stripped sponza.obj (the reference measured 10.33
-    tri-tests/ray there vs 1.17 for bunny,
-    writeup/A2/Readme.tex:95-98).
-
-Each at 512x512, trace depth 4, one shadow ray per hit, forward AND
+Default workload: sponza_proxy — the ~160k-tri procedural colonnaded
+atrium rendered from INSIDE (scenes/registry), the interior-occlusion
+workload class of the stripped sponza.obj (the reference measured 10.33
+tri-tests/ray there vs 1.17 for bunny, writeup/A2/Readme.tex:95-98),
+and the one full-size mesh scene that builds from this repository
+alone. 512x512, trace depth 4, one shadow ray per hit, forward AND
 backward (gradient w.r.t. every material kd).
 
-vs_baseline compares each scene against the reference's own
-+shadows number for THAT scene (writeup/A2/Readme.tex:81-82 — forward
-only; ours times forward+backward):
-  bunny1:  524,288 rays / 0.084176 s = 6.23 M rays/s
-  bunny20: 524,288 rays / 0.115115 s = 4.55 M rays/s
+vs_baseline compares against the reference's own +shadows number for
+that scene (writeup/A2/Readme.tex:81-82 — forward only; ours times
+forward+backward).
 
-Prints ONE JSON line: the bunny1 entry as the headline metric (round-
-over-round continuity), with the bunny20 entry under "extra"; n_tris is
-included everywhere so the workload scale is auditable.
+Prints ONE JSON line naming the device it ran on. It refuses to run
+without a GPU: a CPU number is not a benchmark of this system.
 
-Set CSE168_BENCH_SCENE=<name> to bench a single scene instead (e.g.
-sponza with CSE168_SPONZA_OBJ pointing at a real sponza OBJ).
+Set CSE168_BENCH_SCENE=<name> to bench another scene (bunny1, bunny20
+and sponza need the upstream meshes, see CSE168_REFERENCE_DIR).
 """
 
 import json
@@ -36,17 +25,9 @@ import os
 import sys
 import time
 
-# persistent XLA compile cache: the remote-compile path pays a large
-# per-process cold start; cached executables skip it entirely
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(
-                          os.path.abspath(__file__)), ".jax_cache"))
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 # writeup/A2/Readme.tex:80-87: 512^2 +shadows render times, SSE build,
 # 16 threads (forward only)
@@ -69,10 +50,10 @@ DEPTH = 4
 
 
 def bench_scene(scene_name: str) -> dict:
-    from cse168_raytracer_tpu.config import RenderConfig
-    from cse168_raytracer_tpu.ops.accel import attach_accel
-    from cse168_raytracer_tpu.render.integrator import render_hdr
-    from cse168_raytracer_tpu.scenes import build
+    from cse168_raytracer.config import RenderConfig
+    from cse168_raytracer.ops.accel import attach_accel
+    from cse168_raytracer.render.integrator import render_hdr
+    from cse168_raytracer.scenes import build
 
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, trace_depth=DEPTH)
     scene, static, cam, cfg = build(scene_name, cfg)
@@ -82,9 +63,8 @@ def bench_scene(scene_name: str) -> dict:
     n_tris = int(np.asarray(scene.tris.valid).sum())
     key = jax.random.key(0)
 
-    # scene is a jit ARGUMENT (not a closure): closed-over arrays become
-    # XLA constants embedded in the HLO, and at bunny20 scale (1.39 M
-    # tris) that payload exceeds the compile-RPC size limit
+    # scene is a jit ARGUMENT (not a closure): closed-over arrays would
+    # become constants embedded in the compiled program
     def fwd_bwd(kd, scene):
         s = scene.replace(materials=scene.materials._replace(kd=kd))
         hdr, stats = render_hdr(s, static, cam, cfg, key)
@@ -110,6 +90,7 @@ def bench_scene(scene_name: str) -> dict:
 
     base = BASELINE_RAYS / BASELINE_SECONDS.get(scene_name,
                                                 BASELINE_SECONDS["bunny1"])
+    dev = jax.devices()[0]
     entry = {
         "metric": f"{scene_name}_512_fwd+bwd_rays_per_sec_per_chip",
         "value": round(rays_per_sec, 1),
@@ -118,6 +99,9 @@ def bench_scene(scene_name: str) -> dict:
         "n_tris": n_tris,
         "ms_per_step": round(dt * 1000, 2),
         "accel_build_s": round(build_s, 2),
+        "accel": type(scene.accel).__name__,
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
     }
     print(f"[bench] {rays} rays in {dt*1000:.1f} ms/step "
           f"(scene={scene_name}, {n_tris} tris, "
@@ -128,16 +112,13 @@ def bench_scene(scene_name: str) -> dict:
 
 
 def main():
-    only = os.environ.get("CSE168_BENCH_SCENE")
-    if only:
-        entries = [bench_scene(only)]
-    else:
-        entries = [bench_scene("bunny1"), bench_scene("bunny20"),
-                   bench_scene("sponza_proxy")]
-    head = dict(entries[0])
-    if len(entries) > 1:
-        head["extra"] = entries[1:]
-    print(json.dumps(head))
+    if jax.default_backend() != "gpu":
+        sys.exit("bench.py measures the GPU; JAX found none "
+                 f"(backend {jax.default_backend()!r})")
+    from cse168_raytracer.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
+    print(json.dumps(bench_scene(os.environ.get("CSE168_BENCH_SCENE",
+                                                "sponza_proxy"))))
 
 
 if __name__ == "__main__":

@@ -6,20 +6,20 @@
 // split plane per axis with incremental object migration; here we use
 // the standard 16-bin SAH sweep (same cost model, N_L*SA_L + N_R*SA_R,
 // BVH.cpp:53-58) which is O(N) per level and produces comparable trees.
-// Output is shaped for the TPU traversal kernels (ops/pallas_bvh.py):
+// Output (ops/sah.py re-orders the triangles into compact leaves and
+// ops/cuda_bvh.py lays the nodes out for csrc/bvh_trace.cu):
 //
-//   * a permutation of triangle indices such that each leaf's
-//     triangles are contiguous and padded to LEAF_CAP slots (-1 pad);
+//   * per leaf, its triangle indices, padded to LEAF_CAP slots (-1 pad);
 //   * per internal node: both children's AABBs + child links
-//     (>=0: internal node id; <0: ~leaf id), matching the kernel's
-//     one-row-per-visit fetch.
+//     (>=0: internal node id; <0: ~leaf id), so a visit is one row
+//     fetch.
 //
 // Exposed as a plain C ABI consumed via ctypes (no pybind11 in this
 // image). Build: make -C csrc
 //
 // Leaf rule: subdivide while > LEAF_CAP triangles; if SAH refuses to
 // split (all centroids in one bin), fall back to a median split so
-// leaves always fit the fixed-K packet.
+// leaves never exceed LEAF_CAP.
 
 #include <algorithm>
 #include <cmath>

@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cse168_raytracer_tpu.models.geometry import make_blpatch_pool
-from cse168_raytracer_tpu.ops.intersect import (PRIM_BLPATCH,
-                                                intersect_blpatches)
-from cse168_raytracer_tpu.ops.surface import _blpatch_surface
+from cse168_raytracer.models.geometry import make_blpatch_pool
+from cse168_raytracer.ops.intersect import (PRIM_BLPATCH,
+                                            intersect_blpatches)
+from cse168_raytracer.ops.surface import _blpatch_surface
 
 
 def _flat_patch():
@@ -58,12 +58,12 @@ def test_curved_patch_point_on_surface():
 
 def test_patch_in_scene_render():
     """End-to-end: a bilinear patch renders through the full pipeline."""
-    from cse168_raytracer_tpu.config import RenderConfig
-    from cse168_raytracer_tpu.models.lights import LIGHT_POINT
-    from cse168_raytracer_tpu.models.materials import MaterialBuilder
-    from cse168_raytracer_tpu.models.scene import make_scene
-    from cse168_raytracer_tpu.render.camera import make_camera
-    from cse168_raytracer_tpu.render.integrator import render_hdr
+    from cse168_raytracer.config import RenderConfig
+    from cse168_raytracer.models.lights import LIGHT_POINT
+    from cse168_raytracer.models.materials import MaterialBuilder
+    from cse168_raytracer.models.scene import make_scene
+    from cse168_raytracer.render.camera import make_camera
+    from cse168_raytracer.render.integrator import render_hdr
 
     mb = MaterialBuilder()
     m = mb.phong(kd=(1, 1, 1))

@@ -6,13 +6,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cse168_raytracer_tpu.config import RenderConfig
-from cse168_raytracer_tpu.render.progressive import render_progressive
-from cse168_raytracer_tpu.scenes import build
-from cse168_raytracer_tpu.utils.checkpoint import (load_photon_maps,
-                                                   load_render_state,
-                                                   save_photon_maps,
-                                                   save_render_state)
+from cse168_raytracer.config import RenderConfig
+from cse168_raytracer.render.progressive import render_progressive
+from cse168_raytracer.scenes import build
+from cse168_raytracer.utils.checkpoint import (load_photon_maps,
+                                               load_render_state,
+                                               save_photon_maps,
+                                               save_render_state)
 
 
 def test_render_state_roundtrip(tmp_path):
@@ -47,8 +47,8 @@ def test_progressive_resume_equals_straight_run(tmp_path):
 
 
 def test_photon_map_roundtrip(tmp_path):
-    from cse168_raytracer_tpu.ops.photon import (PhotonMaps, build_grid,
-                                                 grid_irradiance)
+    from cse168_raytracer.ops.photon import (PhotonMaps, build_grid,
+                                             grid_irradiance)
     rng = np.random.RandomState(0)
     pos = rng.uniform(-1, 1, (100, 3)).astype(np.float32)
     pw = rng.uniform(0, 1, (100, 3)).astype(np.float32)

@@ -11,17 +11,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cse168_raytracer_tpu.config import RenderConfig
-from cse168_raytracer_tpu.scenes import build
-from cse168_raytracer_tpu.models.geometry import (make_plane_pool,
-                                                  make_sphere_pool)
-from cse168_raytracer_tpu.models.lights import (LIGHT_POINT, LIGHT_SQUARE,
-                                                make_light_table,
-                                                sample_origin)
-from cse168_raytracer_tpu.models.materials import MaterialBuilder
-from cse168_raytracer_tpu.models.scene import make_scene
-from cse168_raytracer_tpu.render.integrator import render_hdr
-from cse168_raytracer_tpu.scenes.registry import make_camera
+from cse168_raytracer.config import RenderConfig
+from cse168_raytracer.scenes import build
+from cse168_raytracer.models.geometry import (make_plane_pool,
+                                              make_sphere_pool)
+from cse168_raytracer.models.lights import (LIGHT_POINT, LIGHT_SQUARE,
+                                            make_light_table,
+                                            sample_origin)
+from cse168_raytracer.models.materials import MaterialBuilder
+from cse168_raytracer.models.scene import make_scene
+from cse168_raytracer.render.integrator import render_hdr
+from cse168_raytracer.scenes.registry import make_camera
 
 
 # ---------------------------------------------------------------------------
@@ -165,8 +165,8 @@ def test_dof_blurs_out_of_focus_only():
 # ---------------------------------------------------------------------------
 
 def test_radiance_hdr_roundtrip(tmp_path):
-    from cse168_raytracer_tpu.models.textures import (read_radiance_hdr,
-                                                      write_radiance_hdr)
+    from cse168_raytracer.models.textures import (read_radiance_hdr,
+                                                  write_radiance_hdr)
     rng = np.random.default_rng(0)
     img = (rng.uniform(0.0, 1.0, (7, 9, 3)) ** 2 * 37.0).astype(np.float32)
     img[0, 0] = 0.0                       # zero-exponent pixel
@@ -185,14 +185,14 @@ def test_hdr_env_texture_through_loader(tmp_path):
     """A synthetic .hdr loaded via load_image_texture drives env-map
     lighting through the HDR tonemap branch (Texture.cpp:23-28:
     min(1.5*sqrt(v/max), 1))."""
-    from cse168_raytracer_tpu.models.textures import (image_lookup,
-                                                      load_image_texture,
-                                                      make_environment)
+    from cse168_raytracer.models.textures import (image_lookup,
+                                                  load_image_texture,
+                                                  make_environment)
     img = np.zeros((8, 16, 3), np.float32)
     img[:, :8] = 4.0      # bright half
     img[:, 8:] = 0.25     # dim half
     p = str(tmp_path / "env.hdr")
-    from cse168_raytracer_tpu.models.textures import write_radiance_hdr
+    from cse168_raytracer.models.textures import write_radiance_hdr
     write_radiance_hdr(p, img)
     tex = load_image_texture(p)
     assert tex.is_hdr
@@ -227,11 +227,11 @@ def test_hdr_env_texture_through_loader(tmp_path):
 
 def test_no_dropped_rays_on_refractive_cornell():
     """The refractive cornell render must fit its child rays in the
-    2x pool (VERDICT r1 weak #6: silent energy loss would be invisible
-    to every other test)."""
-    from cse168_raytracer_tpu.scenes import build
+    2x pool (silent energy loss would be invisible to every other
+    test)."""
+    from cse168_raytracer.scenes import build
     cfg = RenderConfig(width=32, height=32, trace_depth=5)
-    scene, static, cam, cfg = build("cornell", cfg)
+    scene, static, cam, cfg = build("cornell_proxy", cfg)
     hdr, stats = jax.jit(render_hdr, static_argnames=("static", "cfg"))(
         scene, static, cam, cfg, jax.random.key(0))
     assert int(stats.dropped_rays) == 0
@@ -246,27 +246,27 @@ def test_no_dropped_rays_on_refractive_cornell():
 
 def test_collect_stats_counts_full_render():
     """cfg.collect_stats must surface the -DSTATS counters measured
-    inside the Pallas traversal for the WHOLE render (closest + shadow
-    rays), not a separate primary-only pass."""
+    inside the traversal for the WHOLE render (closest + shadow rays),
+    not a separate primary-only pass (the bvh walk counts on the CPU;
+    the cuda kernel counts the same way on the card)."""
     import dataclasses
-    from cse168_raytracer_tpu.ops.accel import attach_accel
-    from cse168_raytracer_tpu.scenes import build
+    from cse168_raytracer.ops.accel import attach_accel
+    from cse168_raytracer.scenes import build
 
     cfg = RenderConfig(width=32, height=32, trace_depth=2,
                        collect_stats=True)
-    scene, static, cam, cfg = build("teapot", cfg)
-    scene = attach_accel(scene, kind="pallas_sah4")
+    scene, static, cam, cfg = build("knot", cfg)
+    scene = attach_accel(scene, kind="bvh", leaf_size=4)
     hdr, stats = render_hdr(scene, static, cam, cfg, jax.random.key(0))
     n_rays = (int(stats.primary_rays) + int(stats.secondary_rays)
               + int(stats.shadow_rays))
     box = float(stats.box_tests)
     tri = float(stats.tri_tests)
-    # teapot at 32x32: every ray pays at least the root visit; tile
-    # accounting bounds tests/ray by the whole tree
     assert box > 0 and tri > 0
-    from cse168_raytracer_tpu.ops.pallas_bvh import K
-    assert tri / n_rays < scene.accel.n_leaves * K
-    assert box / n_rays < scene.accel.n_nodes * 4
+    # two box tests per internal visit, four slots per leaf visit
+    assert box % 2 == 0 and tri % 4 == 0
+    assert tri / n_rays < scene.tris.num_tris / 10
+    assert box / n_rays < 2 * scene.accel.num_nodes
     # without collect_stats the counters stay at their zero default
     cfg2 = dataclasses.replace(cfg, collect_stats=False)
     _, stats2 = render_hdr(scene, static, cam, cfg2, jax.random.key(0))
@@ -277,37 +277,15 @@ def test_attach_accel_rejects_unknown_kwargs():
     """Mistyped accelerator options must raise, not silently drop
     (attach_accel validates per kind)."""
     import pytest
-    from cse168_raytracer_tpu.ops.accel import attach_accel
+    from cse168_raytracer.ops.accel import attach_accel
     cfg = RenderConfig(width=8, height=8)
-    scene, static, cam, cfg = build("teapot", cfg)
+    scene, static, cam, cfg = build("knot", cfg)
     with pytest.raises(TypeError, match="unsupported options"):
-        attach_accel(scene, kind="pallas_sah4", leaf_size=16)
+        attach_accel(scene, kind="cuda", tile=16)
     with pytest.raises(TypeError, match="unsupported options"):
         attach_accel(scene, kind="bvh", tile=64)
-
-
-def test_render_hdr_band_matches_full_render():
-    """render_hdr_band (host-level dispatch chunking) stacks to the
-    full-frame deterministic render (ulp-level tolerance: the band
-    graph compiles separately, so XLA fusion/rounding order may differ
-    by ~1e-5 relative)."""
-    import numpy as np
-    import jax
-    import jax.numpy as jnp
-    from cse168_raytracer_tpu.render.integrator import (render_hdr,
-                                                        render_hdr_band)
-    cfg = RenderConfig(width=32, height=32, trace_depth=2)
-    scene, static, cam, cfg = build("teapot", cfg)
-    key = jax.random.key(0)
-    full, _ = jax.jit(lambda s, k: render_hdr(s, static, cam, cfg, k))(
-        scene, key)
-    bandf = jax.jit(lambda s, k, y0: render_hdr_band(
-        s, static, cam, cfg, k, y0, 8)[0])
-    stacked = np.concatenate(
-        [np.asarray(bandf(scene, key, jnp.int32(b * 8)))
-         for b in range(4)], axis=0)
-    np.testing.assert_allclose(stacked, np.asarray(full),
-                               rtol=1e-4, atol=1e-6)
+    with pytest.raises(TypeError, match="unsupported options"):
+        attach_accel(scene, kind="block", leaf_size=8)
 
 
 def test_sponza_proxy_scene_scale():
@@ -317,3 +295,52 @@ def test_sponza_proxy_scene_scale():
     cfg = RenderConfig(width=8, height=8)
     scene, static, cam, cfg = build("sponza_proxy", cfg)
     assert int(np.asarray(scene.tris.valid).sum()) >= 100_000
+
+
+def test_png_writer_round_trips_without_imageio(tmp_path):
+    """write_image's PNG path is numpy + zlib only (the GPU host has no
+    imageio): decode the file by hand and get the rows back top-down."""
+    import struct
+    import zlib
+    from cse168_raytracer.render.image_io import write_image
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, (5, 7, 3), dtype=np.uint8)   # bottom-up
+    path = str(tmp_path / "x.png")
+    write_image(path, img)
+    data = open(path, "rb").read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, chunks = 8, {}
+    while pos < len(data):
+        n, = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + n]
+        crc, = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        assert crc == zlib.crc32(tag + body) & 0xFFFFFFFF
+        chunks[tag] = chunks.get(tag, b"") + body
+        pos += 12 + n
+    w, h, depth, ctype = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    assert (w, h, depth, ctype) == (7, 5, 8, 2)
+    raw = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
+    rows = raw.reshape(5, 1 + 7 * 3)
+    assert np.all(rows[:, 0] == 0)
+    np.testing.assert_array_equal(rows[:, 1:].reshape(5, 7, 3), img[::-1])
+
+
+def test_compile_cache_rule(monkeypatch):
+    """One cache rule for the CLI, bench.py and chip_smoke.py: the
+    environment's JAX_COMPILATION_CACHE_DIR when set (left to JAX),
+    else <checkout>/.jax_cache."""
+    from cse168_raytracer.utils import compile_cache
+    saved = jax.config.jax_compilation_cache_dir
+    try:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/elsewhere")
+        jax.config.update("jax_compilation_cache_dir", saved)
+        assert compile_cache.enable_compile_cache() == "/elsewhere"
+        assert jax.config.jax_compilation_cache_dir == saved
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+        path = compile_cache.enable_compile_cache()
+        assert path == compile_cache.DEFAULT_DIR
+        assert path.endswith(".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == path
+    finally:
+        jax.config.update("jax_compilation_cache_dir", saved)

@@ -14,9 +14,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cse168_raytracer_tpu.config import RenderConfig
-from cse168_raytracer_tpu.render.integrator import render_hdr
-from cse168_raytracer_tpu.scenes import build
+from cse168_raytracer.config import RenderConfig
+from cse168_raytracer.render.integrator import render_hdr
+from cse168_raytracer.scenes import build
 
 
 def central_diff(f, x0, eps):
@@ -113,11 +113,11 @@ def test_grad_wrt_sphere_center_matches_fd_frozen_discrete(sphere_setup):
     on the full render does not converge for geometry parameters — each
     eps flips different silhouette/shadow pixels — which is exactly why
     the protocol fixes the discrete structure."""
-    from cse168_raytracer_tpu.models.lights import nee_sample
-    from cse168_raytracer_tpu.ops.intersect import closest_hit
-    from cse168_raytracer_tpu.ops.surface import make_surface
-    from cse168_raytracer_tpu.core.vecmath import safe_normalize
-    from cse168_raytracer_tpu.render.camera import eye_rays
+    from cse168_raytracer.models.lights import nee_sample
+    from cse168_raytracer.ops.intersect import closest_hit
+    from cse168_raytracer.ops.surface import make_surface
+    from cse168_raytracer.core.vecmath import safe_normalize
+    from cse168_raytracer.render.camera import eye_rays
 
     scene, static, cam, cfg, key, _render = sphere_setup
     w = h = 12
@@ -166,7 +166,7 @@ def test_grad_env_bg_color(sphere_setup):
 
 # ---------------------------------------------------------------------------
 # BASELINE-scene coverage: cornell refraction (kt/ior), mesh geometry
-# (teapot floor translation), texture colors (checkerboard), and image
+# (floor translation), texture colors (checkerboard), and image
 # environment texels — every differentiable leaf class exercised
 # through the REAL render (render_hdr), not a hand-built pipeline.
 # ---------------------------------------------------------------------------
@@ -174,17 +174,17 @@ def test_grad_env_bg_color(sphere_setup):
 @pytest.fixture(scope="module")
 def cornell_setup():
     cfg = RenderConfig(width=12, height=12, trace_depth=3)
-    scene, static, cam, cfg = build("cornell", cfg)
+    scene, static, cam, cfg = build("cornell_proxy", cfg)
     key = jax.random.key(0)
     render = jax.jit(render_hdr, static_argnames=("static", "cfg"))
     return scene, static, cam, cfg, key, render
 
 
 def test_grad_wrt_kt_through_refraction(cornell_setup):
-    """d(image)/d(kt) of the water material: flows through the Fresnel
+    """d(image)/d(kt) of the glass material: flows through the Fresnel
     split weights (Scene.cpp:314-336)."""
     scene, static, cam, cfg, key, render = cornell_setup
-    water = 4  # material index of the WaterDrops glass (registry order)
+    water = 4  # material index of the glass knot (registry order)
 
     def loss_jx(kt_row):
         kt = scene.materials.kt.at[water].set(kt_row)
@@ -215,12 +215,12 @@ def test_grad_wrt_ior_through_refraction():
     that FD at any usable eps measures secants across texture features
     instead of derivatives (measured: FD only converges to the jvp as
     eps -> 2e-5, where f32 render noise dominates)."""
-    from cse168_raytracer_tpu.models.geometry import (make_plane_pool,
-                                                      make_sphere_pool)
-    from cse168_raytracer_tpu.models.lights import LIGHT_POINT
-    from cse168_raytracer_tpu.models.materials import MaterialBuilder
-    from cse168_raytracer_tpu.models.scene import make_scene
-    from cse168_raytracer_tpu.scenes.registry import make_camera
+    from cse168_raytracer.models.geometry import (make_plane_pool,
+                                                  make_sphere_pool)
+    from cse168_raytracer.models.lights import LIGHT_POINT
+    from cse168_raytracer.models.materials import MaterialBuilder
+    from cse168_raytracer.models.scene import make_scene
+    from cse168_raytracer.scenes.registry import make_camera
 
     mb = MaterialBuilder()
     floor = mb.phong(kd=(0.5, 0.5, 0.5))
@@ -327,13 +327,13 @@ def test_grad_wrt_checker_colors():
 def test_grad_wrt_env_texels():
     """Image-environment texel gradients (bilinear env_lookup,
     Scene.cpp:657-688): rays that miss pick up d(image)/d(texel)."""
-    from cse168_raytracer_tpu.models.geometry import make_sphere_pool
-    from cse168_raytracer_tpu.models.lights import LIGHT_POINT
-    from cse168_raytracer_tpu.models.materials import MaterialBuilder
-    from cse168_raytracer_tpu.models.scene import make_scene
-    from cse168_raytracer_tpu.models.textures import (build_image_texture,
-                                                      make_environment)
-    from cse168_raytracer_tpu.scenes.registry import make_camera
+    from cse168_raytracer.models.geometry import make_sphere_pool
+    from cse168_raytracer.models.lights import LIGHT_POINT
+    from cse168_raytracer.models.materials import MaterialBuilder
+    from cse168_raytracer.models.scene import make_scene
+    from cse168_raytracer.models.textures import (build_image_texture,
+                                                  make_environment)
+    from cse168_raytracer.scenes.registry import make_camera
 
     rng = np.random.default_rng(0)
     tex = build_image_texture(
@@ -376,12 +376,12 @@ def test_grad_photon_power():
     the host boundary (build_photon_maps docstring) — so the oracle
     perturbs the STORED powers, the exact surface BASELINE.json's
     differentiable indirect pass needs."""
-    from cse168_raytracer_tpu.models.geometry import make_plane_pool
-    from cse168_raytracer_tpu.models.lights import LIGHT_DIRECTIONAL_AREA
-    from cse168_raytracer_tpu.models.materials import MaterialBuilder
-    from cse168_raytracer_tpu.models.scene import make_scene
-    from cse168_raytracer_tpu.ops.photon import build_photon_maps
-    from cse168_raytracer_tpu.scenes.registry import make_camera
+    from cse168_raytracer.models.geometry import make_plane_pool
+    from cse168_raytracer.models.lights import LIGHT_DIRECTIONAL_AREA
+    from cse168_raytracer.models.materials import MaterialBuilder
+    from cse168_raytracer.models.scene import make_scene
+    from cse168_raytracer.ops.photon import build_photon_maps
+    from cse168_raytracer.scenes.registry import make_camera
 
     mb = MaterialBuilder()
     white = mb.phong(kd=(0.8, 0.8, 0.8))

@@ -5,14 +5,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cse168_raytracer_tpu.config import PI
-from cse168_raytracer_tpu.models.lights import (LIGHT_DIRECTIONAL_AREA,
-                                                LIGHT_POINT, make_light_table,
-                                                nee_sample)
-from cse168_raytracer_tpu.models.materials import (MaterialBuilder,
-                                                   energy_clamp, is_diffuse,
-                                                   is_reflective,
-                                                   is_refractive)
+from cse168_raytracer.config import PI
+from cse168_raytracer.models.lights import (LIGHT_DIRECTIONAL_AREA,
+                                            LIGHT_POINT, make_light_table,
+                                            nee_sample)
+from cse168_raytracer.models.materials import (MaterialBuilder,
+                                               energy_clamp, is_diffuse,
+                                               is_reflective,
+                                               is_refractive)
 
 
 def test_energy_clamp_matches_phong_ctor():

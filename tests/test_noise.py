@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cse168_raytracer_tpu.core import noise
+from cse168_raytracer.core import noise
 
 PTS = np.array([
     [0.5, 0.5, 0.5],

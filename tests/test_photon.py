@@ -5,16 +5,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cse168_raytracer_tpu.config import PI, RenderConfig
-from cse168_raytracer_tpu.models.geometry import (make_plane_pool,
-                                                  make_sphere_pool)
-from cse168_raytracer_tpu.models.lights import (LIGHT_DIRECTIONAL_AREA,
-                                                LIGHT_POINT)
-from cse168_raytracer_tpu.models.materials import MaterialBuilder
-from cse168_raytracer_tpu.models.scene import make_scene
-from cse168_raytracer_tpu.ops.photon import (build_grid, build_photon_maps,
-                                             grid_irradiance,
-                                             trace_photon_batch)
+from cse168_raytracer.config import PI, RenderConfig
+from cse168_raytracer.models.geometry import (make_plane_pool,
+                                              make_sphere_pool)
+from cse168_raytracer.models.lights import (LIGHT_DIRECTIONAL_AREA,
+                                            LIGHT_POINT)
+from cse168_raytracer.models.materials import MaterialBuilder
+from cse168_raytracer.models.scene import make_scene
+from cse168_raytracer.ops.photon import (build_grid, build_photon_maps,
+                                         grid_irradiance,
+                                         trace_photon_batch)
 
 
 @pytest.fixture(scope="module")
@@ -165,7 +165,7 @@ def test_overflow_cells_preserve_energy():
     every photon, PhotonMap.cpp:252-259, so energy conservation is the
     parity requirement)."""
     import numpy as np
-    from cse168_raytracer_tpu.ops.photon import build_grid, grid_irradiance
+    from cse168_raytracer.ops.photon import build_grid, grid_irradiance
     rng = np.random.default_rng(3)
     # a tight blob: everything lands in one or two cells
     n = 400
@@ -194,7 +194,7 @@ def test_clustered_gather_matches_bruteforce():
     bind)."""
     import numpy as np
     import jax.numpy as jnp
-    from cse168_raytracer_tpu.ops.photon import build_grid, grid_irradiance
+    from cse168_raytracer.ops.photon import build_grid, grid_irradiance
     rng = np.random.default_rng(4)
     blobs = rng.uniform(-2, 2, (6, 3))
     pos = np.concatenate([b + rng.normal(0, 0.08, (700, 3))
@@ -221,11 +221,11 @@ def _two_plane_photon_scene():
     """Floor + ceiling + a directional area light between them: photons
     bounce floor->ceiling (and back), so the GLOBAL map stores
     indirect photons on both planes."""
-    from cse168_raytracer_tpu.models.geometry import make_plane_pool
-    from cse168_raytracer_tpu.models.lights import LIGHT_DIRECTIONAL_AREA
-    from cse168_raytracer_tpu.models.materials import MaterialBuilder
-    from cse168_raytracer_tpu.models.scene import make_scene
-    from cse168_raytracer_tpu.scenes.registry import make_camera
+    from cse168_raytracer.models.geometry import make_plane_pool
+    from cse168_raytracer.models.lights import LIGHT_DIRECTIONAL_AREA
+    from cse168_raytracer.models.materials import MaterialBuilder
+    from cse168_raytracer.models.scene import make_scene
+    from cse168_raytracer.scenes.registry import make_camera
     mb = MaterialBuilder()
     white = mb.phong(kd=(0.8, 0.8, 0.8))
     planes = make_plane_pool([(0, 0, 0), (0, 4, 0)],
@@ -246,9 +246,9 @@ def test_photon_maps_brighten_render():
     term)."""
     import jax
     import numpy as np
-    from cse168_raytracer_tpu.config import RenderConfig
-    from cse168_raytracer_tpu.ops.photon import build_photon_maps
-    from cse168_raytracer_tpu.render.integrator import render_hdr
+    from cse168_raytracer.config import RenderConfig
+    from cse168_raytracer.ops.photon import build_photon_maps
+    from cse168_raytracer.render.integrator import render_hdr
     scene, static, cam = _two_plane_photon_scene()
     cfg = RenderConfig(width=32, height=32, trace_depth=2,
                        photons_per_light=2000,
@@ -272,8 +272,8 @@ def test_sharded_photon_emission_matches_total_energy():
     and partitions work evenly across devices."""
     import jax
     import numpy as np
-    from cse168_raytracer_tpu.ops.photon import trace_photon_batch_sharded
-    from cse168_raytracer_tpu.parallel.sharding import make_mesh
+    from cse168_raytracer.ops.photon import trace_photon_batch_sharded
+    from cse168_raytracer.parallel.sharding import make_mesh
     scene, static, cam = _two_plane_photon_scene()
     mesh = make_mesh()
     n_dev = mesh.size
@@ -297,8 +297,8 @@ def test_auto_radius_targets_500nn_estimate():
     dropping it, so density hotspots stay comparable."""
     import numpy as np
     import jax.numpy as jnp
-    from cse168_raytracer_tpu.ops.photon import (_auto_radius, build_grid,
-                                                 grid_irradiance)
+    from cse168_raytracer.ops.photon import (_auto_radius, build_grid,
+                                             grid_irradiance)
     rng = np.random.default_rng(11)
     # photons on a plane with a density hotspot (caustic-like)
     n_bg, n_hot = 12000, 6000
@@ -343,10 +343,10 @@ def test_photon_visualization_overlay():
     on the floor plane between the walls must land inside the image."""
     import jax
     import numpy as np
-    from cse168_raytracer_tpu.config import RenderConfig
-    from cse168_raytracer_tpu.ops.photon import build_photon_maps
-    from cse168_raytracer_tpu.render.photon_viz import (photon_overlay,
-                                                        project_points)
+    from cse168_raytracer.config import RenderConfig
+    from cse168_raytracer.ops.photon import build_photon_maps
+    from cse168_raytracer.render.photon_viz import (photon_overlay,
+                                                    project_points)
     scene, static, cam = _two_plane_photon_scene()
     cfg = RenderConfig(width=48, height=48, trace_depth=2,
                        photons_per_light=1500,

@@ -6,18 +6,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cse168_raytracer_tpu.config import RenderConfig
-from cse168_raytracer_tpu.ops.accel import accel_closest_hit, attach_accel
-from cse168_raytracer_tpu.ops.intersect import closest_hit
-from cse168_raytracer_tpu.render.camera import eye_rays, make_camera
-from cse168_raytracer_tpu.render.integrator import render_hdr
-from cse168_raytracer_tpu.render.tonemap import sigmoid_tonemap
-from cse168_raytracer_tpu.scenes import build
+from cse168_raytracer.config import RenderConfig
+from cse168_raytracer.ops.accel import accel_closest_hit, attach_accel
+from cse168_raytracer.ops.intersect import closest_hit
+from cse168_raytracer.render.camera import eye_rays, make_camera
+from cse168_raytracer.render.integrator import render_hdr
+from cse168_raytracer.render.tonemap import sigmoid_tonemap
+from cse168_raytracer.scenes import build
 
 
 @pytest.fixture(scope="module")
-def teapot():
-    return build("teapot", RenderConfig(width=32, height=32))
+def knot():
+    return build("knot", RenderConfig(width=32, height=32))
 
 
 def test_camera_center_ray_points_at_lookat():
@@ -29,8 +29,8 @@ def test_camera_center_ray_points_at_lookat():
     assert np.allclose(np.asarray(o[0]), [0, 3, 6])
 
 
-def test_accel_matches_brute_force(teapot):
-    scene, static, cam, cfg = teapot
+def test_accel_matches_brute_force(knot):
+    scene, static, cam, cfg = knot
     scene_a = attach_accel(scene)
     ys, xs = jnp.meshgrid(jnp.arange(32), jnp.arange(32), indexing="ij")
     o, d = eye_rays(cam, xs.ravel(), ys.ravel(), 32, 32)
@@ -68,11 +68,11 @@ def test_render_deterministic_without_sampling():
 
 def test_render_cornell_refraction_spawns_secondaries():
     cfg = RenderConfig(width=16, height=16, trace_depth=4)
-    scene, static, cam, cfg = build("cornell", cfg)
+    scene, static, cam, cfg = build("cornell_proxy", cfg)
     scene = attach_accel(scene)
     hdr, stats = jax.jit(render_hdr, static_argnames=("static", "cfg"))(
         scene, static, cam, cfg, jax.random.key(0))
-    assert int(stats.secondary_rays) > 0    # water drops refract
+    assert int(stats.secondary_rays) > 0    # the glass knot refracts
     hdr = np.asarray(hdr)
     # red wall tints the left, green the right (cornell box materials)
     assert hdr.max() > 0.1
@@ -122,12 +122,12 @@ def test_row_tiled_render_matches_untiled():
     for the 2048x1365 final-scene config); the Whitted render is
     deterministic, so the tiled image must match the untiled one."""
     import numpy as np
-    from cse168_raytracer_tpu.config import RenderConfig
-    from cse168_raytracer_tpu.render.integrator import render_hdr
-    from cse168_raytracer_tpu.scenes import build
+    from cse168_raytracer.config import RenderConfig
+    from cse168_raytracer.render.integrator import render_hdr
+    from cse168_raytracer.scenes import build
 
     cfg = RenderConfig(width=32, height=32, trace_depth=3)
-    scene, static, cam, cfg = build("teapot", cfg)
+    scene, static, cam, cfg = build("knot", cfg)
     key = jax.random.key(0)
     render = jax.jit(render_hdr, static_argnames=("static", "cfg"))
     full, st_full = render(scene, static, cam, cfg, key)

@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cse168_raytracer_tpu.core import sampling, vecmath as vm
+from cse168_raytracer.core import sampling, vecmath as vm
 
 
 def test_cosine_hemisphere_distribution():

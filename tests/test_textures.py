@@ -4,13 +4,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cse168_raytracer_tpu.config import PI
-from cse168_raytracer_tpu.models.textures import (ImageTexture,
-                                                  build_image_texture,
-                                                  checker_lookup, env_lookup,
-                                                  generate_noise,
-                                                  image_lookup,
-                                                  make_environment)
+from cse168_raytracer.config import PI
+from cse168_raytracer.models.textures import (ImageTexture,
+                                              build_image_texture,
+                                              checker_lookup, env_lookup,
+                                              generate_noise,
+                                              image_lookup,
+                                              make_environment)
 
 
 def test_checker_parity():
@@ -109,8 +109,8 @@ def test_env_bg_color_when_empty():
 def test_cellular_distances_vs_bruteforce():
     """CellularTexture2D::getClosestDistances (Texture.cpp:252-354):
     grid-bucketed 3x3 gather must match a brute-force toroidal kNN."""
-    from cse168_raytracer_tpu.models.textures import (build_cellular_texture,
-                                                      cellular_distances)
+    from cse168_raytracer.models.textures import (build_cellular_texture,
+                                                  cellular_distances)
     rng = np.random.RandomState(7)
     pts = rng.random_sample((60, 2)).astype(np.float32)
     tex = build_cellular_texture(60, grid_width=8, grid_height=8,
@@ -132,9 +132,9 @@ def test_cellular_distances_vs_bruteforce():
 def test_cellular_lookup_formula_and_grad():
     """lookup2D combine exp(-(f1-f0+f2-0.8*f3)*100) (Texture.cpp:238-245)
     and gradient flow into the point positions."""
-    from cse168_raytracer_tpu.models.textures import (build_cellular_texture,
-                                                      cellular_distances,
-                                                      cellular_lookup)
+    from cse168_raytracer.models.textures import (build_cellular_texture,
+                                                  cellular_distances,
+                                                  cellular_lookup)
     tex = build_cellular_texture(40, grid_width=6, grid_height=6, seed=3)
     u = jnp.linspace(0.05, 0.95, 32)
     v = jnp.linspace(0.12, 0.88, 32)

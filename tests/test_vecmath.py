@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cse168_raytracer_tpu.core import vecmath as vm
+from cse168_raytracer.core import vecmath as vm
 
 
 def rand_dirs(key, n):

@@ -3,10 +3,10 @@ driven headless — no matplotlib window needed."""
 
 import numpy as np
 
-from cse168_raytracer_tpu.config import RenderConfig
-from cse168_raytracer_tpu.ops.accel import attach_accel
-from cse168_raytracer_tpu.render.viewer import InteractiveViewer
-from cse168_raytracer_tpu.scenes import build
+from cse168_raytracer.config import RenderConfig
+from cse168_raytracer.ops.accel import attach_accel
+from cse168_raytracer.render.viewer import InteractiveViewer
+from cse168_raytracer.scenes import build
 
 
 def _viewer():

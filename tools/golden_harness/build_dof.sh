@@ -2,7 +2,7 @@
 # Build the reference renderer headless with -DDOF and render bunny20
 # (aperture 0.20, focus plane 15.3 — Miro.h:18-19; thin-lens eye-ray
 # jitter Camera.cpp:135-148). Lens samples are frand-stochastic, so the
-# output is a STATISTICAL baseline: tools/golden_tpu.py compares 8x8
+# output is a STATISTICAL baseline: a parity check compares 8x8
 # block means (64 independent lens samples per block) with an MC-scaled
 # tolerance, like the pt_cornell and photon_cornell cases.
 #

@@ -4,7 +4,7 @@
 # tracePhotons emits from, Scene.cpp:368,430). The photon map is
 # stochastic (frand-driven emission + Russian roulette, OpenMP
 # nondeterministic accumulation order), so the output is a STATISTICAL
-# baseline: tools/golden_tpu.py compares 8x8 block means with an
+# baseline: a parity check compares 8x8 block means with an
 # MC-scaled tolerance (like the pt_cornell cases).
 #
 # Usage: bash tools/golden_harness/build_photon.sh [scratch-dir]
